@@ -5,7 +5,7 @@ CPU backend so ``python examples/<name>.py`` works on any rig — including
 ones whose environment pins an accelerator platform (e.g. a site
 customization setting ``jax_platforms`` programmatically, where the
 ``JAX_PLATFORMS`` env var alone would be silently overridden).  Set
-``SITATOR_EXAMPLES_PLATFORM=tpu`` (or any platform name) to run an
+``SITATOR_EXAMPLES_PLATFORM=gpu`` (or any platform name) to run an
 example on real hardware instead.
 """
 import os

@@ -136,7 +136,7 @@ assert abs(np.trace(da.D_tensor_) / 3 - da.D_tracer_) < 1e-9
 
 # --- 11. what a scattering experiment would see: S(q) and the coherent
 # intermediate scattering function on the lattice-commensurate q-grid
-# (exact under PBC; rho_q is one MXU matmul per frame chunk), plus the
+# (exact under PBC; rho_q is one matmul per frame chunk), plus the
 # vibrational spectrum and the Green–Kubo diffusivity from the VACF.
 from sitator_tpu.dynamics import (ScatteringAnalysis,
                                   VibrationalSpectrumAnalysis)

@@ -1,12 +1,12 @@
-"""Fifth walkthrough: multi-chip frame-parallel analysis.
+"""Fifth walkthrough: multi-device frame-parallel analysis.
 
 The workload's natural parallel axis is the frame axis (SURVEY.md §3.10):
 landmark vectors are embarrassingly parallel over frames, and the only
-cross-chip traffic is tiny per-site reductions (`psum` over ICI).  One
-1-D `jax.sharding.Mesh` therefore covers the whole scaling story — on a
-real v5e-8 the same code spreads over 8 TPU chips.
+cross-device traffic is tiny per-site reductions (`psum`).  One 1-D
+`jax.sharding.Mesh` therefore covers the whole scaling story — on a host
+with several GPUs the same code spreads over all of them.
 
-This script demonstrates it WITHOUT TPU hardware by forcing 8 virtual CPU
+This script demonstrates it WITHOUT accelerator hardware by forcing 8 virtual CPU
 devices (the same trick the test suite uses), then shows:
 
 1. `StreamingLandmarkAnalysis(mesh=frame_mesh())` — the out-of-core engine
@@ -78,5 +78,5 @@ assert np.array_equal(np.asarray(out1.n_ij), np.asarray(out8.n_ij))
 assert np.allclose(np.asarray(out1.occupancies),
                    np.asarray(out8.occupancies))
 print("8-device run is bit-identical to the single-device run.")
-print("On a v5e-8 the identical code runs with JAX_PLATFORMS unset —")
-print("frame_mesh() picks up the real chips and blocks stream over ICI.")
+print("On a multi-GPU host the identical code runs with JAX_PLATFORMS unset —")
+print("frame_mesh() picks up the real devices.")

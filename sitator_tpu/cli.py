@@ -16,8 +16,8 @@ Production entry points over the library (no Python required):
 - ``sites STRUCTURE`` — trajectory-free site screening from a structure
   file (xyz / POSCAR / CIF): Voronoi geometry or bond-valence
   chemistry, with ``--supercell`` tiling.
-- ``doctor`` — environment/accelerator health check (wedge-detecting
-  probe matmul).
+- ``doctor`` — environment/accelerator report (backend, devices, probe
+  matmul).
 
 Beyond-reference convenience: upstream ``sitator`` is library-only.
 """
@@ -1064,10 +1064,8 @@ def cmd_arrhenius(args):
 
 
 def cmd_doctor(args):
-    """Environment / accelerator health self-check.  A healthy TPU
-    session answers the probe matmul in seconds; a wedged chip (killed
-    in-flight work) takes minutes and degrades throughput 10-20% — run
-    this before any headline measurement."""
+    """Environment / accelerator report: versions, backend, devices, and
+    the wall time of a probe matmul (compile + run + fetch)."""
     import platform
     import time
 
@@ -1093,13 +1091,6 @@ def cmd_doctor(args):
     dt = time.perf_counter() - t1
     print(f"probe: {n}x{n} bf16 matmul compile+run+fetch "
           f"{dt:.1f}s (checksum {float(r.sum()):.3g})")
-    if backend != "cpu" and dt > args.wedge_threshold:
-        print(f"WARNING: probe took {dt:.0f}s (> "
-              f"{args.wedge_threshold:.0f}s) — the chip looks WEDGED "
-              "(in-flight work killed earlier?); throughput will be "
-              "degraded for minutes.  Wait it out before benchmarking.",
-              file=sys.stderr)
-        return 1
     print("healthy")
     return 0
 
@@ -1107,7 +1098,7 @@ def cmd_doctor(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="sitator_tpu",
-        description="TPU-native site-trajectory analysis pipeline")
+        description="accelerated site-trajectory analysis pipeline")
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -1152,11 +1143,9 @@ def build_parser():
     w.set_defaults(func=cmd_sites)
 
     d = sub.add_parser("doctor",
-                       help="environment / accelerator health check "
-                            "(probe matmul; flags a wedged chip)")
+                       help="environment / accelerator report "
+                            "(backend, devices, probe matmul)")
     d.add_argument("--probe-size", type=int, default=256)
-    d.add_argument("--wedge-threshold", type=float, default=60.0,
-                   help="seconds after which the probe counts as wedged")
     d.set_defaults(func=cmd_doctor)
 
     # options shared by the analyze and arrhenius pipelines
@@ -1314,6 +1303,8 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from sitator_tpu.util.compile_cache import enable_compile_cache
+    enable_compile_cache()
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s")

@@ -7,7 +7,7 @@ generic **attribute system** — named ``(n_sites, ...)`` site attributes and
 ``(n_sites, n_sites, ...)`` edge attributes that downstream engines attach and
 consume by name, and which are automatically remapped by subsetting/merging.
 
-TPU-native notes: the object itself is host-side; device kernels receive its
+Device notes: the object itself is host-side; device kernels receive its
 arrays.  Ragged ``vertices`` are exposed in padded ``(S, V_max)`` + mask form
 via :meth:`padded_vertices` so static-shape kernels can consume them.
 """

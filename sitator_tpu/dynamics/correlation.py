@@ -2,7 +2,7 @@
 
 Engine-convention wrappers (``Engine(params).run(st)``) over the
 device histogram kernels in :mod:`sitator_tpu.ops.correlation` — see
-there for the physics and the TPU mapping.  Selections are ``'mobile'``,
+there for the physics and the device mapping.  Selections are ``'mobile'``,
 ``'static'``, an integer species number, or a boolean atom mask.
 """
 from __future__ import annotations
@@ -149,7 +149,7 @@ class VanHoveAnalysis:
 class ScatteringAnalysis:
     """Reciprocal-space structure and kinetics on the lattice-
     commensurate q-grid (exact under PBC — no minimum-image truncation;
-    see :mod:`sitator_tpu.ops.scattering` for the TPU mapping).
+    see :mod:`sitator_tpu.ops.scattering` for the device mapping).
 
     Computes, shell-averaged over ``n_shells`` |q| shells up to
     ``q_max`` (inverse length units of the trajectory):

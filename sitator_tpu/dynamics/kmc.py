@@ -23,8 +23,8 @@ underlying continuous-time model — makes the closure exact in
 expectation: what JumpAnalysis measures on the output converges to what
 it measured on the input.
 
-TPU-native: the walk is one ``lax.scan`` over frames, all walkers
-advanced in parallel by Gumbel-max categorical draws on the MXU-friendly
+On device: the walk is one ``lax.scan`` over frames, all walkers
+advanced in parallel by Gumbel-max categorical draws on the dense
 ``(W, S)`` logit gather; runs equally on the CPU backend.
 """
 from __future__ import annotations

@@ -9,7 +9,7 @@ protocol the rest of the IO layer speaks (``len()``, ``r[lo:hi]``), so
 ``ChunkedFeeder`` / ``StreamingLandmarkAnalysis`` run off it unchanged
 (SURVEY.md §3.9 item 5, §6.7).
 
-Design notes (TPU-first): the store's chunk layout is ``(chunk_frames, A,
+Design notes: the store's chunk layout is ``(chunk_frames, A,
 3)`` — whole frames per chunk, so a streaming block read is a contiguous
 chunk range with no re-assembly; writes are issued asynchronously with a
 bounded in-flight window so conversion overlaps IO with parsing.  A

@@ -14,8 +14,8 @@ Unlike the Voronoi route (pure geometry) or the density route
 (needs a trajectory), BVS needs only the static structure plus two
 empirical constants per cation–anion pair.
 
-TPU mapping: the map is an all-pairs minimum-image distance block
-(grid points × anions, ``pairwise_pbc_distances`` on the VPU) plus an
+Device mapping: the map is an all-pairs minimum-image distance block
+(grid points × anions, ``pairwise_pbc_distances``) plus an
 elementwise exp/sum — swept over grid chunks with static shapes, f32
 with the distance math inherited from :mod:`sitator_tpu.ops.pbc`.
 

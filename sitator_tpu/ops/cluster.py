@@ -1,13 +1,13 @@
 """On-device threshold-based cosine clustering (hot loop #2).
 
-TPU-native redesign of the reference ``sitator/util/DotProdClassifier.py``
+Device redesign of the reference ``sitator/util/DotProdClassifier.py``
 (SURVEY.md §3.7): threshold-based agglomeration where the number of clusters
 is *discovered*, not fixed.  The reference's online Python loop becomes:
 
 - **seeding**: a bounded ``lax.while_loop`` that greedily adds the first
   still-uncovered sample as a new center, maintaining a running max-similarity
   per sample so each round costs one ``(n,) = X @ c`` matvec — O(n·D·K_max)
-  total on the MXU instead of a Python loop;
+  total as matmuls instead of a Python loop;
 - **refinement**: fixed-iteration Lloyd-style passes — assign by
   ``X @ Cᵀ`` argmax (threshold-gated), recompute centers by the one-hot
   matmul ``Wᵀ @ X``, renormalize;
@@ -28,6 +28,10 @@ from sitator_tpu.ops.landmark import assign_to_centers
 __all__ = ["dotprod_fit", "dotprod_refine", "ClusterResult"]
 
 
+# cluster membership is decided by these f32 products; on a GPU they
+# would otherwise run in TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 @partial(jax.jit, static_argnames=("k_max",))
 def _seed(X, valid, k_max, cluster_threshold):
     n, d = X.shape
@@ -43,7 +47,7 @@ def _seed(X, valid, k_max, cluster_threshold):
         seed_idx = jnp.argmax(max_sim < cluster_threshold)
         c = X[seed_idx]
         centers = jax.lax.dynamic_update_index_in_dim(centers, c, k, axis=0)
-        sims = X @ c
+        sims = jnp.matmul(X, c, precision=_HIGHEST)
         # progress guarantee: the seed itself is covered by fiat — a
         # sub-unit row's self-similarity is its norm², which can sit
         # below the threshold forever and would re-seed the same sample
@@ -67,14 +71,14 @@ def dotprod_refine(X, centers, k, k_max, cluster_threshold, n_iters=10):
 
     def step(carry, _):
         centers = carry
-        sims = X @ centers.T                              # (n, K)
+        sims = jnp.matmul(X, centers.T, precision=_HIGHEST)  # (n, K)
         sims = jnp.where(slot_active[None, :], sims, -jnp.inf)
         conf = jnp.max(sims, axis=1)
         label = jnp.argmax(sims, axis=1)
         w = jax.nn.one_hot(label, k_max, dtype=X.dtype)
         w = w * (conf >= cluster_threshold)[:, None]
         counts = jnp.sum(w, axis=0)                       # (K,)
-        newc = w.T @ X                                    # (K, D)
+        newc = jnp.matmul(w.T, X, precision=_HIGHEST)       # (K, D)
         norms = jnp.sqrt(jnp.sum(newc * newc, axis=1, keepdims=True))
         newc = newc / jnp.maximum(norms, 1e-12)
         centers = jnp.where((counts > 0)[:, None], newc, centers)

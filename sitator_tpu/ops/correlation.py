@@ -14,17 +14,16 @@ correlation functions of the superionic-conductor literature:
   single-ion displacement magnitudes after lag t; hop-length peaks make
   discrete jump diffusion visible.
 
-TPU mapping: each (origin-frame, lag) pair needs an all-pairs
+Device mapping: each (origin-frame, lag) pair needs an all-pairs
 minimum-image distance block — O(N²) work that rides
-:func:`~sitator_tpu.ops.pbc.pairwise_pbc_distances` (VPU, statically
+:func:`~sitator_tpu.ops.pbc.pairwise_pbc_distances` (statically
 shaped) — followed by a fixed-bin histogram
 (``searchsorted`` + ``segment_sum``).  Frames are swept with
 ``lax.scan`` in bounded chunks: the device carry is int32 (exact — a
 float32 carry silently drops increments past 2^24) with chunk sizes
 capped so a chunk cannot overflow, and the host accumulates chunk
 results in int64.  All lags of :func:`van_hove_distinct` share one
-origin grid (and therefore one compiled program — remote TPU compiles
-are expensive).  The self part is a cheap O(N·F) host pass in float64
+origin grid (and therefore one compiled program).  The self part is a cheap O(N·F) host pass in float64
 over the unwrapped trajectory (same precision reasoning as
 :mod:`sitator_tpu.ops.msd`).
 

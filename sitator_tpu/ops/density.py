@@ -10,7 +10,7 @@ lattice alone (no trajectory needed), density needs a trajectory but
 finds exactly the occupied basins (including interstitial sites a
 geometric decomposition misses, and none of the never-visited nodes).
 
-TPU mapping: the grid accumulation is the hot part (O(F·M)) and runs
+Device mapping: the grid accumulation is the hot part (O(F·M)) and runs
 on device — fractional coordinates, ``floor`` to bin triplets, one
 ``segment_sum`` scatter-add per frame chunk, exact int32 counts with
 chunk sizes capped so a chunk cannot overflow, host-accumulated in
@@ -40,10 +40,10 @@ _MAX_CHUNK_POINTS = 2 ** 31 - 2 ** 24
 def _grid_chunk(pos, cell_inv, n_bins):
     """Bin a ``(C, M, 3)`` cartesian chunk into a flat ``(n_bins³,)``
     int32 periodic histogram."""
-    # precision pin: the TPU's default f32 matmul runs on the MXU at
-    # bf16 (~1e-3 relative) — enough to move seam-adjacent atoms a
-    # whole bin and break the exact-count contract (the same trap as
-    # the r3 SOAP einsums; see ops/scattering.py's identical pin)
+    # precision pin: an accelerator's default f32 matmul may run with
+    # reduced-precision operands (TF32 on a GPU, ~1e-3 relative) — enough
+    # to move seam-adjacent atoms a whole bin and break the exact-count
+    # contract (see ops/scattering.py's identical pin)
     frac = jnp.matmul(pos.reshape(-1, 3), cell_inv,
                       precision=jax.lax.Precision.HIGHEST)
     frac = frac - jnp.floor(frac)                     # wrap into [0, 1)

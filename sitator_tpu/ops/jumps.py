@@ -1,6 +1,6 @@
 """On-device jump statistics (hot loop #3).
 
-TPU-native redesign of the reference ``sitator/dynamics/JumpAnalysis.py``
+Device redesign of the reference ``sitator/dynamics/JumpAnalysis.py``
 frame loop (SURVEY.md §3.4, §4.3): the per-ion "last known site" carry runs
 as a single ``lax.scan`` over frames with vectorized per-ion state, and every
 per-event tally (hop counts ``n_ij``, residence sums, jump-lag sums) is a

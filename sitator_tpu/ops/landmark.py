@@ -1,18 +1,20 @@
 """Landmark-vector computation as fused XLA array ops (hot loop #1).
 
-TPU-native redesign of the reference Cython kernel
-``sitator/landmark/helpers.pyx :: _fill_landmark_vectors`` (SURVEY.md §3.2).
-The reference loops ``frame → ion → site → vertex`` computing
+Dense plain-XLA form of the reference Cython kernel
+``sitator/landmark/helpers.pyx :: _fill_landmark_vectors`` (SURVEY.md §3.2) —
+the plain reference the tiled and gather paths are tested against, and the
+explicit ``use_fused=False`` route.  The reference loops
+``frame → ion → site → vertex`` computing
 ``Π_v cutoff(min_image_dist(ion, vertex_v))`` one scalar at a time.  Here the
-same math is reshaped for the MXU:
+same math is reshaped for a matrix unit:
 
 1. per-pair log-cutoff matrix ``logC[b, m, n] = log σ(-k (d(m,n) - d0))``
-   over (frame, mobile, static) — dense VPU elementwise work, where ``d`` is
+   over (frame, mobile, static) — dense elementwise work, where ``d`` is
    the minimum-image distance;
 2. the product over each site's vertex atoms becomes a **matmul** with the
    0/1 vertex-membership matrix ``A[n, s]``:
    ``log lvec[b, m, s] = logC[b, m, :] @ A[:, s]`` — one
-   ``(B·M, N) @ (N, S)`` contraction on the systolic array;
+   ``(B·M, N) @ (N, S)`` contraction;
 3. ``lvec = exp(...)`` — computing the product in log space also fixes the
    fp32/bf16 underflow of long products of logistics (SURVEY.md §8.3).
 
@@ -29,6 +31,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from sitator_tpu.ops.pbc import min_image_disp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "vertex_membership_matrix",
@@ -89,7 +93,7 @@ def landmark_vectors(mobile, static, A, cell, cell_inv, midpoint, steepness,
     cell, cell_inv : (3, 3).
     midpoint, steepness : logistic cutoff parameters.
     matmul_dtype : optional dtype (e.g. ``jnp.bfloat16``) for the log-space
-        contraction operands — positions/distances stay fp32; only the MXU
+        contraction operands — positions/distances stay fp32; only the
         matmul runs reduced.  Cosine-threshold decisions tolerate the <1%
         perturbation; parity tests use the default fp32.
 
@@ -109,10 +113,12 @@ def landmark_vectors(mobile, static, A, cell, cell_inv, midpoint, steepness,
     if matmul_dtype is not None:
         logc = logc.astype(matmul_dtype)
         A = A.astype(matmul_dtype)
-    # product over vertices == matmul in log space (MXU)
+    # product over vertices == matmul in log space; an f32 contraction is
+    # meant as f32 (a GPU would otherwise run it in TF32)
     loglv = jax.lax.dot_general(
         logc, A,
         dimension_numbers=(((2,), (0,)), ((), ())),
+        precision=_HIGHEST if matmul_dtype is None else None,
         preferred_element_type=jnp.float32,
     )                                                          # (B, M, S)
     return jnp.exp(loglv)
@@ -157,6 +163,7 @@ def assign_to_centers(lv_norm, centers, active, assignment_threshold,
     sims = jax.lax.dot_general(
         lv_norm, centers,
         dimension_numbers=(((lv_norm.ndim - 1,), (1,)), ((), ())),
+        precision=_HIGHEST if matmul_dtype is None else None,
         preferred_element_type=jnp.float32,
     )                                                          # (..., K)
     sims = jnp.where(active, sims, -jnp.inf)

@@ -1,8 +1,7 @@
 """Markov Clustering (MCL) as on-device matrix iteration.
 
 Reference parity: ``sitator/util/mcl.py`` (SURVEY.md §3.7), used by
-``MergeSitesByDynamics``.  The expansion step is a dense ``(S, S)`` matmul —
-MXU-native — and inflation/pruning are fused elementwise ops; the whole
+``MergeSitesByDynamics``.  The expansion step is a dense ``(S, S)`` matmul and inflation/pruning are fused elementwise ops; the whole
 convergence loop is a bounded ``lax.while_loop`` on device.  Cluster
 extraction from the converged (idempotent) matrix is a tiny host-side pass.
 """

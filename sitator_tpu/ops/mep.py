@@ -9,7 +9,7 @@ straight minimum-image hop segments — an upper-bound proxy that is
 pessimistic for curved mechanisms — to genuine minimum-energy paths on
 the sampled density.
 
-TPU mapping: the landscape is the (log-)density grid interpolated
+Device mapping: the landscape is the (log-)density grid interpolated
 trilinearly with periodic wrap; its gradient comes from ``jax.grad``
 through the interpolation weights (piecewise multilinear — exactly the
 analytic gradient, no finite differences); one string iteration is a

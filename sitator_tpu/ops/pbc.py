@@ -1,11 +1,10 @@
 """Periodic-boundary-condition math as pure, vectorized JAX ops.
 
-TPU-native replacement for the reference's Cython ``PBCCalculator``
+Accelerator replacement for the reference's Cython ``PBCCalculator``
 (``sitator/util/PBCCalculator.pyx`` — SURVEY.md §3.7).  Where the reference
 runs per-pair C loops on a single CPU core, everything here is a fractional
 coordinate round-trip (``x @ cell_inv`` → wrap → ``@ cell``) expressed as
-dense array math so XLA can fuse it into surrounding kernels and tile it onto
-the VPU/MXU.  All functions are functional (cell passed explicitly), traceable
+dense array math so XLA can fuse it into surrounding kernels.  All functions are functional (cell passed explicitly), traceable
 under ``jit``/``vmap``/``shard_map``, and shape-polymorphic via broadcasting.
 
 Conventions
@@ -26,6 +25,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+# positions are f32 by intent: a GPU would otherwise run these products in
+# TF32 (~3 significant digits), moving minimum images by ~1e-3 of the cell
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = [
     "cell_inverse",
     "to_frac",
@@ -39,7 +42,27 @@ __all__ = [
     "masked_pbc_average",
     "rescale_to_cell",
     "PBCCalculator",
+    "supports_cell",
+    "kernel_cell",
 ]
+
+
+def supports_cell(cell, tol=1e-8) -> bool:
+    """True when ``cell`` is orthorhombic (diagonal) — the landmark paths'
+    cheapest minimum-image variant.  Triclinic cells are also supported
+    (via :func:`kernel_cell`); this predicate only selects the cheap path."""
+    cell = np.asarray(cell)
+    return bool(np.all(np.abs(cell - np.diag(np.diag(cell))) < tol))
+
+
+def kernel_cell(cell):
+    """Host-side: reduce a (3, 3) cell to the landmark paths' preferred
+    argument — the ``(3,)`` diagonal when orthorhombic (per-axis
+    min-image), else the full ``(3, 3)`` matrix (fractional round-trip)."""
+    cell = np.asarray(cell, np.float32)
+    if supports_cell(cell):
+        return jnp.asarray(np.diag(cell))
+    return jnp.asarray(cell)
 
 
 def cell_inverse(cell):
@@ -49,12 +72,12 @@ def cell_inverse(cell):
 
 def to_frac(x, cell_inv):
     """Cartesian → fractional coordinates. ``x``: (..., 3)."""
-    return x @ cell_inv
+    return jnp.matmul(x, cell_inv, precision=_HIGHEST)
 
 
 def to_cart(f, cell):
     """Fractional → cartesian coordinates. ``f``: (..., 3)."""
-    return f @ cell
+    return jnp.matmul(f, cell, precision=_HIGHEST)
 
 
 def wrap_frac(f):
@@ -89,7 +112,8 @@ def min_image_disp(dx, cell, cell_inv, exact: bool = False):
         [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
         dtype=d.dtype,
     )  # (27, 3) fractional shifts
-    cand = d[..., None, :] + shifts @ cell  # (..., 27, 3)
+    cand = d[..., None, :] + jnp.matmul(shifts, cell,
+                                        precision=_HIGHEST)  # (..., 27, 3)
     norms = jnp.sum(cand * cand, axis=-1)
     best = jnp.argmin(norms, axis=-1)
     return jnp.take_along_axis(cand, best[..., None, None], axis=-2)[..., 0, :]

@@ -15,10 +15,10 @@ connect site kinetics to diffraction and QENS/neutron experiments:
   shell-averaged S(q) and the coherent intermediate scattering function
   F(q, t) = ⟨ρ_q(t₀+t) ρ_q*(t₀)⟩/N over ALL time origins (FFT).
 
-TPU mapping: with wrapped fractional coordinates ``f ∈ [0, 1)`` the
+Device mapping: with wrapped fractional coordinates ``f ∈ [0, 1)`` the
 phase is ``q·r = 2π n·f``, so the whole phase table for a chunk of
-frames is ONE f32 matmul ``(C·M, 3) @ (3, Nq)`` on the MXU followed by
-a fused mod-1 + cos/sin + ion-sum on the VPU.  The mod-1 trick keeps
+frames is ONE f32 matmul ``(C·M, 3) @ (3, Nq)`` followed by a fused
+mod-1 + cos/sin + ion-sum.  The mod-1 trick keeps
 every angle in ``[0, 2π)`` BEFORE the trig call: f32 phase error stays
 ~1e-5 rad even for high-order modes (|n| ~ 20), where naive f32
 ``q·r_unwrapped`` would be wrong by whole radians.  The time
@@ -75,12 +75,12 @@ def allowed_wavevectors(cell, q_max, q_min=0.0):
 @partial(jax.jit, static_argnames=())
 def _rho_chunk(frac, n_t):
     """(C, M, 3) wrapped fractional frames × (3, Nq) integer modes →
-    (C, Nq, 2) ion-summed (cos, sin).  One MXU matmul + fused VPU
+    (C, Nq, 2) ion-summed (cos, sin).  One matmul + fused elementwise
     mod-1/trig/reduce."""
     C, M, _ = frac.shape
-    # HIGHEST: the TPU MXU default truncates f32 operands to bf16,
-    # which would blow the documented ~1e-5 rad phase budget to ~0.1 rad
-    # at high |n| (same trap as the SOAP einsums, soap.py)
+    # HIGHEST: a reduced-precision default (TF32 on a GPU) would blow the
+    # documented ~1e-5 rad phase budget to ~0.1 rad at high |n| (same
+    # trap as the SOAP einsums, soap.py)
     u = jnp.matmul(frac.reshape(C * M, 3), n_t,
                    precision=jax.lax.Precision.HIGHEST)  # (C*M, Nq)
     theta = (2 * jnp.pi) * (u - jnp.floor(u))

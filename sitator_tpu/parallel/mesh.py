@@ -2,7 +2,7 @@
 
 The workload's natural parallel axis is the frame (time) axis — SURVEY.md
 §3.10: landmark vectors are embarrassingly parallel over frames, and every
-cross-chip quantity is a tiny per-site reduction riding ICI.  One 1-D mesh
+cross-device quantity is a tiny per-site reduction.  One 1-D mesh
 covers DP/"CP"; the in-chip (mobile × site) plane is the degenerate TP axis
 handled by the kernels themselves.
 """

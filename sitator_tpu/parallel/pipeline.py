@@ -4,8 +4,9 @@ This is the multi-chip execution path for the core workload (SURVEY.md §8.2
 step 6): one ``jit``-compiled function computes landmark vectors → peak
 evening → normalization → site assignment → jump statistics for a block of
 frames, with the frame axis sharded over a 1-D :func:`frame_mesh`.  Per-site
-statistics come out replicated — XLA inserts the ``psum`` over ICI from the
-scatter-add + prefix-scan structure; there is no hand-written communication.
+statistics come out replicated — XLA inserts the cross-device ``psum`` from
+the scatter-add + prefix-scan structure; there is no hand-written
+communication.
 """
 from __future__ import annotations
 
@@ -33,10 +34,10 @@ def mxu_analysis_step(mesh, mobile, static, basis, cell, centers_perm, *,
                       cutoff_shape="logistic", mxu_bf16=True,
                       interpret=False, active_idx=None, n_sites=None,
                       peak_evening="none", valid=None, carry=None):
-    """Frame-sharded analysis step on the MXU-product kernel
+    """Frame-sharded analysis step on the tiled lv stage
     (:mod:`sitator_tpu.ops.landmark_mxu`) — same contract as
-    :func:`fused_analysis_step`, ~1.8x faster when the landmark basis
-    shares vertices (``mxu_supported``)."""
+    :func:`fused_analysis_step`, for landmark bases that share vertices
+    (``mxu_supported``)."""
     from sitator_tpu.ops.landmark_mxu import mxu_assign_blocks
     from sitator_tpu.parallel.mesh import shard_map_frames
 
@@ -72,17 +73,16 @@ def mxu_analysis_step(mesh, mobile, static, basis, cell, centers_perm, *,
 
 def fused_analysis_step(mesh, mobile, static, verts, vmask, cell,
                         centers, *, midpoint, steepness, threshold,
-                        s_tile=256, cutoff_shape="logistic", mxu_bf16=True,
-                        interpret=False, active_idx=None, n_sites=None,
-                        peak_evening="none", full_mask=False, valid=None,
-                        carry=None):
-    """Frame-sharded analysis step using the fused Pallas kernel.
+                        cutoff_shape="logistic", mxu_bf16=True,
+                        active_idx=None, n_sites=None, peak_evening="none",
+                        valid=None, carry=None):
+    """Frame-sharded analysis step on the per-vertex gather path.
 
-    The kernel runs per shard under ``shard_map`` (a Pallas call cannot be
-    auto-partitioned by GSPMD); the order-dependent jump statistics run on
+    The landmark step runs per shard under ``shard_map`` (as the tiled
+    path's Pallas call must); the order-dependent jump statistics run on
     the sharded labels OUTSIDE the shard_map, where the associative-prefix
     formulation partitions automatically.  ``cell``: (3,) orthorhombic
-    lengths or (3, 3) triclinic matrix (``ops.landmark_pallas.kernel_cell``).
+    lengths or (3, 3) triclinic matrix (``ops.pbc.kernel_cell``).
 
     mobile (F, M, 3) / static (F, N, 3) frame-sharded over ``mesh``;
     verts/vmask/centers replicated.  ``active_idx`` (K_compact,) int32,
@@ -90,16 +90,15 @@ def fused_analysis_step(mesh, mobile, static, verts, vmask, cell,
     indexing on device (a static gather) before the jump scan; ``n_sites``
     sizes the statistics in that indexing.  Returns (labels, confs, stats).
     """
-    from sitator_tpu.ops.landmark_pallas import fused_assign_blocks
+    from sitator_tpu.ops.landmark_gather import gather_assign_blocks
     from sitator_tpu.parallel.mesh import shard_map_frames
 
     def local(mobile, static, verts, vmask, cell, centers):
-        return fused_assign_blocks(
+        return gather_assign_blocks(
             mobile, static, verts, vmask, cell, centers,
             midpoint=midpoint, steepness=steepness, threshold=threshold,
-            s_tile=s_tile, mxu_bf16=mxu_bf16, interpret=interpret,
-            cutoff_shape=cutoff_shape, peak_evening=peak_evening,
-            full_mask=full_mask)
+            mxu_bf16=mxu_bf16, cutoff_shape=cutoff_shape,
+            peak_evening=peak_evening)
 
     labels, confs = shard_map_frames(
         local, mesh, 2, mobile, static, verts, vmask, cell, centers)
@@ -208,22 +207,18 @@ class SpmdLandmarkPipeline:
         self.assignment_threshold = float(assignment_threshold)
         self.cutoff_shape = cutoff_shape
         self.interpret = bool(interpret)
-        if use_fused == "auto":
-            # the fused kernel handles every configuration: orthorhombic
-            # and triclinic cells (kernel_cell picks the min-image variant)
-            # and peak_evening='clip' (two-pass top-2 sweep in-kernel)
-            from sitator_tpu.ops.kernel_common import is_tpu_backend
-            use_fused = is_tpu_backend()
-        self.use_fused = bool(use_fused)
+        # the tiled and gather paths handle every configuration
+        # (orthorhombic and triclinic cells, peak_evening='clip'); the
+        # dense route runs only when asked for (use_fused=False)
+        self.use_fused = use_fused in ("auto", True)
 
         self.mobile_idx = np.flatnonzero(seed_sn.mobile_mask)
         self.static_idx = np.flatnonzero(seed_sn.static_mask)
         verts, vmask = seed_sn.padded_vertices()
-        self._full_mask = bool(np.asarray(vmask).all())
         rep = replicated(self.mesh)
         self.verts = jax.device_put(jnp.asarray(verts), rep)
         self.vmask = jax.device_put(jnp.asarray(vmask), rep)
-        from sitator_tpu.ops.landmark_pallas import kernel_cell
+        from sitator_tpu.ops.pbc import kernel_cell
         self.kcell = jax.device_put(kernel_cell(seed_sn.structure.cell), rep)
         # fused path uses compacted (live-row) centers; labels are remapped
         # back to the caller's cluster indexing on the way out
@@ -233,7 +228,7 @@ class SpmdLandmarkPipeline:
         centers_compact = np.asarray(centers)[self._active_idx]
         self._centers_compact = jax.device_put(
             jnp.asarray(centers_compact, jnp.float32), rep)
-        # MXU-product route: wins whenever the basis shares vertices
+        # tiled route whenever the basis shares vertices
         self._mxu_basis = None
         if self.use_fused:
             from sitator_tpu.ops.landmark_mxu import (permute_centers,
@@ -255,8 +250,8 @@ class SpmdLandmarkPipeline:
                 self._centers_mxu = jax.device_put(
                     jnp.asarray(permute_centers(centers_compact, basis),
                                 jnp.float32), rep)
-        # the dense membership matrix feeds only the XLA fallback branch
-        # of run_block; on the kernel routes it is ~n_static x n_landmarks
+        # the dense membership matrix feeds only the dense branch of
+        # run_block; on the other routes it is ~n_static x n_landmarks
         # x 4 B of dead device weight
         self.A = (None if self.use_fused else jax.device_put(
             lmops.vertex_membership_matrix(verts, vmask,
@@ -269,6 +264,10 @@ class SpmdLandmarkPipeline:
         self.centers = jax.device_put(jnp.asarray(centers, jnp.float32), rep)
         self.active = jax.device_put(jnp.asarray(active, bool), rep)
         self.n_sites = int(centers.shape[0])
+        from sitator_tpu.ops.kernel_common import lv_impl
+        self.kernel_path_ = (
+            f"tiled:{lv_impl(self.interpret)}" if self._mxu_basis is not None
+            else "gather" if self.use_fused else "dense")
 
     def run_block(self, frames, carry=None):
         """Run one frame block (host array (B, n_atoms, 3)); B is padded to a
@@ -305,10 +304,9 @@ class SpmdLandmarkPipeline:
                 midpoint=self.cutoff_midpoint,
                 steepness=self.cutoff_steepness,
                 threshold=self.assignment_threshold,
-                cutoff_shape=self.cutoff_shape, interpret=self.interpret,
+                cutoff_shape=self.cutoff_shape,
                 active_idx=self._active_idx_j, n_sites=self.n_sites,
-                peak_evening=self.peak_evening, full_mask=self._full_mask,
-                valid=valid, carry=carry)
+                peak_evening=self.peak_evening, valid=valid, carry=carry)
         else:
             labels, confs, stats = analysis_step(
                 mobile, static, self.A, self.cell, self.cell_inv,

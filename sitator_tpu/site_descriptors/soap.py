@@ -1,5 +1,5 @@
 """Native JAX SOAP-style descriptors (power spectrum of a local density
-expansion) — TPU-friendly dense einsums.
+expansion) — accelerator-friendly dense einsums.
 
 Replaces the reference's external quippy/GAP (Fortran) and dscribe (C++)
 SOAP backends (``sitator/site_descriptors/SOAP.py``, SURVEY.md §3.6, §3.9
@@ -36,7 +36,7 @@ by ``radial_basis``:
       c_nlm = 4π Y_lm(r̂_j) ∫ u_n(r) r² e^{-(r²+R²)/2σ²} i_l(rR/σ²) dr,
 
   with ``i_l`` the modified spherical Bessel function — the same
-  analytic route dscribe/quippy take.  TPU-first execution: the radial
+  analytic route dscribe/quippy take.  Device-first execution: the radial
   integrals ``I_nl(R)`` are quadratured host-side in float64 ONCE per
   configuration (exp-scaled Bessels, no overflow at any σ) onto a dense
   ``R`` table; the device kernel linearly interpolates the table per

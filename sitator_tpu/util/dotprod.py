@@ -1,7 +1,7 @@
 """``DotProdClassifier`` — API-parity wrapper over the on-device clustering.
 
 Reference parity: ``sitator/util/DotProdClassifier.py`` (SURVEY.md §3.7).
-The reference's online Python loop is replaced by the MXU formulation in
+The reference's online Python loop is replaced by the matmul formulation in
 :mod:`sitator_tpu.ops.cluster`; this class preserves the fit/predict
 object API for users porting scripts.
 """

@@ -19,7 +19,6 @@ from sitator_tpu.ops.cluster import ClusterResult
 from sitator_tpu.ops.jumps import JumpStats
 from sitator_tpu.ops.kernel_common import (
     load_cell_params,
-    merge_top2,
     min_image_xyz,
     pack_cell_params,
 )
@@ -197,55 +196,61 @@ def test_min_image_xyz_matches_fractional_roundtrip(triclinic):
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
-class _RefStandin:
-    """Pallas-Ref-like wrapper over a numpy array: reads return COPIES
-    (a Pallas ``ref[...]`` read is a value, not a view — a bare numpy
-    array would alias writes back into previously-read values)."""
-
-    def __init__(self, arr):
-        self.arr = arr
-
-    def __getitem__(self, key):
-        return jnp.asarray(self.arr[key])
-
-    def __setitem__(self, key, value):
-        self.arr[key] = np.asarray(value)
-
-
 def test_merge_top2_union_and_tie_semantics():
-    acc_arr = np.zeros((3, 2), np.float32)
-    acc = _RefStandin(acc_arr)
-    tile1 = jnp.asarray([[1.0, 3.0, 2.0],
-                         [5.0, 5.0, 1.0],     # tied max: 2nd-largest IS max
-                         [0.5, 0.1, 0.2]])
-    merge_top2(acc, tile1)
-    np.testing.assert_allclose(acc_arr, [[3, 2], [5, 5], [0.5, 0.2]])
-    tile2 = jnp.asarray([[2.5, 0.0, 0.0],
-                         [6.0, 0.0, 0.0],
-                         [0.05, 0.0, 0.0]])
-    merge_top2(acc, tile2)
-    # union top-2 across both tiles
-    np.testing.assert_allclose(acc_arr, [[3, 2.5], [6, 5], [0.5, 0.2]])
+    """peak_evening='clip' in the XLA assign stage caps every row at its
+    second-largest entry over the WHOLE row (the union of all site tiles);
+    a tied maximum makes the second-largest the maximum itself (the
+    ``lax.top_k`` rule of ``ops.landmark.peak_even``)."""
+    from sitator_tpu.ops import landmark as lmops
+    from sitator_tpu.ops.landmark_mxu import assign_lv
+    lv = jnp.asarray([[1.0, 3.0, 2.0, 2.5, 0.0, 0.0],
+                      [5.0, 5.0, 1.0, 6.0, 0.0, 0.0],
+                      [0.5, 0.1, 0.2, 0.05, 0.0, 0.0]])
+    np.testing.assert_allclose(np.asarray(lmops.peak_even(lv, "clip")),
+                               [[1, 2.5, 2, 2.5, 0, 0],
+                                [5, 5, 1, 5, 0, 0],
+                                [0.2, 0.1, 0.2, 0.05, 0, 0]])
+    centers = np.eye(6, dtype=np.float32)[:3]
+    lab, conf = assign_lv(lv, jnp.asarray(centers.T), 0.0, peak_clip=True,
+                          mxu_bf16=False)
+    want = lmops.peak_even(lv, "clip")
+    want = want / jnp.linalg.norm(want, axis=1, keepdims=True)
+    np.testing.assert_allclose(np.asarray(conf),
+                               np.asarray(want[:, :3].max(axis=1)),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(lab),
+                                  np.asarray(want[:, :3].argmax(axis=1)))
 
 
 def test_prepare_vertex_planes_contract():
-    from sitator_tpu.ops.landmark_pallas import prepare_vertex_planes
+    """The gather path's landmark vectors: per site, the product over its
+    valid vertex slots of the logistic cutoff of the minimum-image
+    distance (direct NumPy loop as the reference)."""
+    from sitator_tpu.ops.landmark_gather import gather_landmark_vectors
     rng = np.random.default_rng(5)
-    B, N, S, V = 2, 15, 4, 3
-    static = rng.normal(size=(B, N, 3)).astype(np.float32)
+    B, M, N, S, V = 2, 3, 15, 4, 3
+    L = 7.0
+    static = (rng.random((B, N, 3)) * L).astype(np.float32)
+    mobile = (rng.random((B, M, 3)) * L).astype(np.float32)
     verts = rng.integers(0, N, (S, V)).astype(np.int32)
     vmask = rng.random((S, V)) < 0.7
-    vp, mask = prepare_vertex_planes(jnp.asarray(static),
-                                     jnp.asarray(verts),
-                                     jnp.asarray(vmask))
-    assert vp.shape == (B, 3, V, S)
-    assert mask.shape == (V, S)
-    np.testing.assert_array_equal(np.asarray(mask),
-                                  vmask.T.astype(np.float32))
-    for s in range(S):
-        for v in range(V):
-            np.testing.assert_allclose(np.asarray(vp[:, :, v, s]),
-                                       static[:, verts[s, v], :])
+    vmask[:, 0] = True
+    got = np.asarray(gather_landmark_vectors(
+        jnp.asarray(mobile), jnp.asarray(static), jnp.asarray(verts),
+        jnp.asarray(vmask), jnp.asarray([L, L, L]), midpoint=2.5,
+        steepness=3.0))
+    want = np.ones((B, M, S))
+    for b in range(B):
+        for m in range(M):
+            for s in range(S):
+                for v in range(V):
+                    if vmask[s, v]:
+                        d = mobile[b, m] - static[b, verts[s, v]]
+                        d -= L * np.round(d / L)
+                        r = np.linalg.norm(d)
+                        want[b, m, s] /= 1.0 + np.exp(3.0 * (r - 2.5))
+    assert got.shape == (B, M, S)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
 
 
 # ------------------------------------------------------------- SOAP env
@@ -291,7 +296,7 @@ def test_radial_smearing_table_contract():
     assert np.abs(table[0, :, 0]).max() > 1e-6
 
 
-# ------------------------------------------------- meshed MXU step
+# ----------------------------------------------- meshed tiled step
 
 def test_mxu_analysis_step_matches_xla_reference():
     from sitator_tpu.ops import landmark as lmops

@@ -131,8 +131,8 @@ def test_pipeline_matches_landmark_analysis(fitted_system):
 
 
 def test_fused_spmd_step_matches_xla(fitted_system):
-    """Fused Pallas kernel under shard_map on the 8-device mesh equals the
-    XLA analysis step (interpret mode on CPU)."""
+    """The gather path under shard_map on the 8-device mesh equals the
+    dense XLA analysis step."""
     import jax
     from sitator_tpu.parallel.pipeline import analysis_step, \
         fused_analysis_step
@@ -157,8 +157,7 @@ def test_fused_spmd_step_matches_xla(fitted_system):
     labels_f, confs_f, stats_f = fused_analysis_step(
         mesh, sh(np.asarray(mobile), mesh), sh(np.asarray(static), mesh),
         jnp.asarray(verts), jnp.asarray(vmask), cell_diag, centers,
-        midpoint=4.0, steepness=3.0, threshold=0.35, s_tile=128,
-        mxu_bf16=False, interpret=True)
+        midpoint=4.0, steepness=3.0, threshold=0.35, mxu_bf16=False)
 
     A = vertex_membership_matrix(verts, vmask, int(md.static_mask.sum()))
     labels_x, confs_x, stats_x = analysis_step(

@@ -148,15 +148,15 @@ def test_triclinic_end_to_end():
 @pytest.mark.parametrize("seed", range(6))
 def test_kernel_trio_fuzz(seed):
     """Fuzz: random ragged bases / cells / params — the three assignment
-    paths (XLA, gather Pallas, MXU-product) must agree exactly on labels
-    (all f32, interpret mode)."""
+    paths (dense XLA, gather, tiled with its Pallas lv kernel in interpret
+    mode) must agree exactly on labels (all f32)."""
     import jax.numpy as jnp
     from sitator_tpu.ops import landmark as lmops
     from sitator_tpu.ops.landmark_mxu import (mxu_assign_blocks,
                                               permute_centers,
                                               prepare_mxu_basis)
-    from sitator_tpu.ops.landmark_pallas import (fused_assign_blocks,
-                                                 kernel_cell)
+    from sitator_tpu.ops.landmark_gather import gather_assign_blocks
+    from sitator_tpu.ops.pbc import kernel_cell
     r = np.random.default_rng(100 + seed)
     B = int(r.integers(1, 4))
     M = int(r.integers(2, 12))
@@ -192,11 +192,11 @@ def test_kernel_trio_fuzz(seed):
         lvn, jnp.asarray(centers), jnp.ones(K, bool), thr)
 
     kc = kernel_cell(cell)
-    lab_g, conf_g = fused_assign_blocks(
+    lab_g, conf_g = gather_assign_blocks(
         jnp.asarray(mobile), jnp.asarray(static), jnp.asarray(verts),
         jnp.asarray(vmask), kc, jnp.asarray(centers), midpoint=midpoint,
-        steepness=steepness, threshold=thr, s_tile=128, mxu_bf16=False,
-        interpret=True, cutoff_shape=shape)
+        steepness=steepness, threshold=thr, mxu_bf16=False,
+        cutoff_shape=shape)
     np.testing.assert_array_equal(np.asarray(lab_x), np.asarray(lab_g))
     np.testing.assert_allclose(np.asarray(conf_x), np.asarray(conf_g),
                                atol=3e-5)

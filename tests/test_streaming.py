@@ -474,7 +474,7 @@ def test_streaming_merge_network(md_system):
 
 
 def test_streaming_fit_fused_matches_dense(md_system):
-    """The fit pass through the lv-emitting MXU kernel reproduces the
+    """The fit pass through the lv-emitting tiled path reproduces the
     dense XLA fit (same clusters, centers to fp tolerance)."""
     md, seeds = md_system
 
@@ -1050,7 +1050,7 @@ def test_streaming_mesh_gather_kernel_matches_single_device(md_system,
     """The per-vertex GATHER kernel under an 8-device mesh (the mxu
     basis builder declining forces the gather plan) is bit-exact vs the
     same kernel on one device — the mesh tests otherwise always take
-    the MXU path on this fixture."""
+    the tiled path on this fixture."""
     md, seeds = md_system
     import sitator_tpu.ops.landmark_mxu as lmxu
     from sitator_tpu.parallel.mesh import frame_mesh

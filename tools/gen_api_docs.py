@@ -28,14 +28,14 @@ MODULES = [
     ("sitator_tpu.misc", "Misc transforms"),
     ("sitator_tpu.visualization", "Plotting"),
     ("sitator_tpu.util", "Utility substrate"),
-    ("sitator_tpu.parallel", "Multi-chip parallelism"),
+    ("sitator_tpu.parallel", "Multi-device parallelism"),
     ("sitator_tpu.ops", "On-device ops (advanced)"),
     ("sitator_tpu.compat", "Reference-namespace shim"),
 ]
 
 OPS_MODULES = [
     "sitator_tpu.ops.pbc", "sitator_tpu.ops.landmark",
-    "sitator_tpu.ops.landmark_pallas", "sitator_tpu.ops.landmark_mxu",
+    "sitator_tpu.ops.landmark_gather", "sitator_tpu.ops.landmark_mxu",
     "sitator_tpu.ops.jumps", "sitator_tpu.ops.cluster",
     "sitator_tpu.ops.mcl", "sitator_tpu.ops.msd",
     "sitator_tpu.ops.correlation",

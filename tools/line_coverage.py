@@ -19,8 +19,8 @@ installed ``sitator_tpu`` package only (tests/tools are not traced).
 
 Caveats: lines only executed under ``jax.jit`` tracing still count as
 hit (tracing runs the Python line); lines inside Pallas kernels count
-when interpret-mode tests trace them.  Dead-on-TPU-only branches
-therefore do not show up — this measures Python-level reachability.
+when interpret-mode tests trace them.  GPU-only branches (the compiled
+Triton route) therefore do not show up — this measures Python-level reachability.
 SUBPROCESSES ARE NOT TRACED: code exercised only through subprocess
 integration tests (``__main__.py``, the example walkthroughs, the CLI
 entry when spawned) reads as uncovered here even though it runs in CI —

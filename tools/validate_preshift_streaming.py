@@ -1,5 +1,5 @@
-"""Repeatable validation (~8 min CPU; run: python tools/validate_preshift_streaming.py): StreamingLandmarkAnalysis with the MXU+preshift
-kernel (interpret mode, large cell where the bound ACTIVATES) must match
+"""Repeatable validation (~8 min CPU; run: python tools/validate_preshift_streaming.py): StreamingLandmarkAnalysis with the tiled
+preshift path (Pallas lv kernel in interpret mode, large cell where the bound ACTIVATES) must match
 the dense-XLA streaming run label-for-label and stat-for-stat.  Uses the
 analytic SC cage basis (as bench.py does) so the interpret-mode grid
 stays tractable."""
