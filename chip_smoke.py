@@ -13,7 +13,8 @@ Phases (each prints one line; any failure raises, exit code non-zero):
 
 1. device — JAX's devices must be GPUs; there is no CPU fallback.
 2. kernel parity — 32 frames, 1024 centers: the Triton lv kernel against
-   its plain twin (max |dlv| <= 1e-5), then pass-2 labels/confidences
+   its plain twin and, on two frames, against the reference landmark
+   vectors (max |dlv| <= 1e-5), then pass-2 labels/confidences
    against the reference: identical labels at f32; with the production
    bf16 similarity, identical labels wherever the reference's top-1 - top-2
    margin and |conf - threshold| both exceed 1e-2, and confidences within
@@ -120,10 +121,19 @@ def phase_kernel(bench, fl, basis, static, mobile):
     lv_k = tiled_landmark_vectors(*args, impl="triton", **kw)
     lv_p = tiled_landmark_vectors(*args, impl="plain", **kw)
     dlv = float(jnp.max(jnp.abs(lv_k - lv_p)))
-    del lv_k, lv_p
     _line(2, f"Triton lv vs plain twin: max|dlv| = {dlv:.3e} "
              f"(tolerance {TOL_LV:g})")
     check(dlv <= TOL_LV, "lv kernel disagrees with its plain twin")
+    # and the kernel's landmark vectors (kd-tile column order) against
+    # the float64 reference on two frames
+    lv_k = np.asarray(lv_k[:2, :, :fl.n_static])
+    del lv_p
+    inv = np.argsort(basis["site_order"])
+    dref = max(float(np.abs(lv_k[f][:, inv] - bench.reference_landmark_vectors(
+        fl.cell, fl.verts, static[f], mobile[f])).max()) for f in range(2))
+    _line(2, f"Triton lv vs float64 reference (2 frames): max|dlv| = "
+             f"{dref:.3e} (tolerance {TOL_LV:g})")
+    check(dref <= TOL_LV, "lv kernel disagrees with the reference")
 
     t0 = time.perf_counter()
     ref = [bench.reference_assign(fl.cell, fl.verts, static[f], mobile[f],

@@ -72,7 +72,7 @@ def test_every_package_export_reachable(shim):
     """The whole public surface of each sitator_tpu subpackage is visible
     through its compat alias (guards against __all__ drift)."""
     import importlib
-    for ref, tpu in [("sitator.dynamics", "sitator_tpu.dynamics"),
+    for ref, pkg in [("sitator.dynamics", "sitator_tpu.dynamics"),
                      ("sitator.network", "sitator_tpu.network"),
                      ("sitator.site_descriptors",
                       "sitator_tpu.site_descriptors"),
@@ -80,9 +80,9 @@ def test_every_package_export_reachable(shim):
                      ("sitator.visualization", "sitator_tpu.visualization"),
                      ("sitator.util", "sitator_tpu.util")]:
         ref_mod = importlib.import_module(ref)
-        tpu_mod = importlib.import_module(tpu)
-        for sym in tpu_mod.__all__:
-            assert getattr(ref_mod, sym) is getattr(tpu_mod, sym), (ref, sym)
+        pkg_mod = importlib.import_module(pkg)
+        for sym in pkg_mod.__all__:
+            assert getattr(ref_mod, sym) is getattr(pkg_mod, sym), (ref, sym)
 
 
 def test_shim_does_not_mutate_real_package(shim):

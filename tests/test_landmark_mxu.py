@@ -595,3 +595,36 @@ def test_triton_lv_kernel_compiled_matches_twin():
         np.asarray(tiled_landmark_vectors(*args, impl="triton", **kw)),
         np.asarray(tiled_landmark_vectors(*args, impl="plain", **kw)),
         atol=1e-5)
+
+
+@pytest.mark.parametrize("use_fused,sharing,want", [
+    ("auto", True, "tiled:plain"), (True, False, "gather"),
+    (False, True, "dense")])
+def test_engine_path_choice(monkeypatch, use_fused, sharing, want):
+    """One rule in every engine: the tiled path wherever the basis shares
+    vertices (its plain twin on the CPU), the gather path otherwise, the
+    dense reference only when asked for — recorded in ``kernel_path_``,
+    with the same results."""
+    import sitator_tpu.ops.landmark_mxu as lmxu
+    from sitator_tpu import SiteNetwork
+    from sitator_tpu.io.synthetic import make_hopping_trajectory
+    from sitator_tpu.landmark import LandmarkAnalysis
+    from sitator_tpu.voronoi import VoronoiSiteGenerator
+
+    md = make_hopping_trajectory(n_cells=3, a=4.0, n_ions=4, n_frames=40,
+                                 jump_rate=0.02, seed=31)
+    seeds = VoronoiSiteGenerator(merge_tol=0.05).run(
+        SiteNetwork(md.structure, md.static_mask, md.mobile_mask))
+    if not sharing:
+        monkeypatch.setattr(lmxu, "prepare_engine_basis",
+                            lambda *a, **k: None)
+    kw = dict(cutoff_midpoint=4.0, cutoff_steepness=3.0,
+              minimum_site_occupancy=0.01, verbose=False)
+    la = LandmarkAnalysis(use_fused=use_fused, **kw)
+    st = la.run(seeds, md.traj.astype(np.float32))
+    assert la.kernel_path_ == want
+    ref = LandmarkAnalysis(use_fused=False, **kw)
+    st_ref = ref.run(seeds, md.traj.astype(np.float32))
+    np.testing.assert_allclose(la.landmark_vectors, ref.landmark_vectors,
+                               atol=5e-5)
+    assert np.mean(st.traj == st_ref.traj) > 0.995

@@ -48,7 +48,12 @@ def jax_block(x):
 
 def _engine_ab(fl, centers, n_blocks, pairs):
     """Pass-2 frames/s of the streaming engine with the lv stage on the
-    Triton kernel vs on its plain twin, alternating, same process."""
+    Triton kernel vs on its plain twin, alternating, same process.  The
+    engine's jitted block step does not key on the lv choice, so every
+    switch drops the compiled programs (``jax.clear_caches``) and runs
+    one untimed warm-up before the timed run."""
+    import jax
+    import sitator_tpu.landmark.streaming as streaming
     import sitator_tpu.ops.landmark_mxu as lmxu
     from chip_smoke import flagship_network, trajectory
     from sitator_tpu.io.formats import ArrayTrajectory
@@ -61,17 +66,19 @@ def _engine_ab(fl, centers, n_blocks, pairs):
         cutoff_midpoint=bench.MIDPOINT, cutoff_steepness=bench.STEEPNESS,
         cutoff_shape=bench.CUTOFF, verbose=False)
     fps = {"triton": [], "plain": []}
-    for impl in ("triton", "plain"):           # compile both first
-        lmxu.lv_impl = lambda interpret=False, impl=impl: impl
-        eng.run(sn, traj, centers=centers)
+    paths = {}
     for i in range(pairs):
         order = ("triton", "plain") if i % 2 == 0 else ("plain", "triton")
         for impl in order:
-            lmxu.lv_impl = lambda interpret=False, impl=impl: impl
+            pick = (lambda interpret=False, impl=impl: impl)
+            lmxu.lv_impl = streaming.lv_impl = pick
+            jax.clear_caches()
+            eng.run(sn, traj, centers=centers)          # compile + warm
             t0 = time.perf_counter()
             eng.run(sn, traj, centers=centers)
             fps[impl].append(len(traj) / (time.perf_counter() - t0))
-    return {"engine_frames": len(traj),
+            paths[impl] = eng.kernel_path_
+    return {"engine_frames": len(traj), "engine_paths": paths,
             "engine_phase_times_last_s": {
                 k: round(v, 4) for k, v in eng.phase_times_.items()},
             "engine_fps_triton": fps["triton"],
@@ -89,6 +96,9 @@ def main():
     ap.add_argument("--engine-blocks", type=int, default=4,
                     help="1024-frame blocks per engine pass-2 run "
                          "(0 skips the engine A/B)")
+    ap.add_argument("--chunk-gib", type=float, default=None,
+                    help="override the frame-chunk byte budget of the "
+                         "tiled path (GiB) for this run")
     args = ap.parse_args()
 
     import jax
@@ -98,7 +108,12 @@ def main():
                                               prepare_engine_basis,
                                               tiled_landmark_vectors)
     from sitator_tpu.ops.pbc import kernel_cell
+    from sitator_tpu.util.compile_cache import enable_compile_cache
 
+    import sitator_tpu.ops.landmark_mxu as lmxu
+    if args.chunk_gib is not None:
+        lmxu._CHUNK_BYTES = int(args.chunk_gib * (1 << 30))
+    enable_compile_cache()
     dev = bench.require_gpu()
     gpu = bench.gpu_name_and_power_limit()
     print(f"# {gpu}", flush=True)
@@ -182,6 +197,7 @@ def main():
 
     res = {
         "what": "pass-2 assign chunk stage split, us per frame (median)",
+        "chunk_bytes": lmxu._CHUNK_BYTES,
         "gpu": gpu, "device_kind": dev.device_kind,
         "frames_per_chunk": F, "s_tile": basis["s_tile"],
         "n_st": basis["n_st"], "UP": basis["UP"],
